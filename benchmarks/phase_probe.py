@@ -2,7 +2,7 @@
 
 Decomposes read_and_count_fastq's wall time into parse / h2d+pack /
 sort-count / d2h fetch / dict materialization so the slow phase is
-identifiable (VERDICT r1 item 5's follow-up).
+identifiable.
 
 Usage: python benchmarks/phase_probe.py [--n 10000000] [--keep PATH]
 """
@@ -44,9 +44,6 @@ def main():
     from shortseq_tpu.count.device import PAD_LENGTH
     from shortseq_tpu.io.fastq import read_fastq_matrix
     from shortseq_tpu.ops.bitpack import pack_and_validate_u32
-    from shortseq_tpu.utils.warmup import start_transfer_warmup
-
-    start_transfer_warmup()
 
     t0 = time.time()
     mat, lengths = read_fastq_matrix(path)

@@ -1,4 +1,4 @@
-"""The reference's 10M-read profiling scenario, end-to-end on the TPU.
+"""The reference's 10M-read profiling scenario, end to end on the device.
 
 Mirrors /root/reference/shortseq/tests/unit_tests_profiling.py:24-37 and
 107-136: generate ~10M reads of 15-32 nt, run the full dedup pipeline
@@ -27,29 +27,46 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import numpy as np
 
 
-def make_fastq(path, n, seed=0, min_len=15, max_len=32, chunk=1 << 20):
-    """Vectorized FASTQ generation (reference make_data's shape: uniform
-    random ACTG reads, 15-32 nt)."""
+def make_fastq(path, n, seed=0, min_len=15, max_len=32,
+               length_classes=None):
+    """Write `n` uniform random ACTG reads as FASTQ (reference make_data's
+    shape: reads of min_len..max_len nt).  `length_classes`, a list of
+    (min_len, max_len) ranges, instead draws each read's range uniformly
+    from the list (the width ladder).  Vectorized: each chunk is one
+    padded byte matrix whose live cells are compacted with one mask, so
+    10 M reads take seconds.  Returns the file size in bytes."""
     rng = np.random.default_rng(seed)
+    classes = np.asarray(length_classes or [(min_len, max_len)], np.int64)
+    top = int(classes[:, 1].max())
     alphabet = np.frombuffer(b"ACTG", np.uint8)
+    head = 11                    # "@r" + 8 digits + "\n"
+    width = head + 2 * top + 4   # + seq + "\n+\n" + qual + "\n"
+    chunk = max(1, (256 << 20) // width)
+    col = np.arange(width)
     with open(path, "wb") as f:
-        written = 0
-        while written < n:
-            m = min(chunk, n - written)
-            lens = rng.integers(min_len, max_len + 1, size=m)
-            width = max_len
-            codes = rng.integers(0, 4, size=(m, width)).astype(np.uint8)
-            seqs = alphabet[codes]
-            parts = []
-            for i in range(m):
-                li = int(lens[i])
-                parts.append(b"@r%d\n" % (written + i))
-                parts.append(seqs[i, :li].tobytes())
-                parts.append(b"\n+\n")
-                parts.append(b"I" * li)
-                parts.append(b"\n")
-            f.write(b"".join(parts))
-            written += m
+        for lo in range(0, n, chunk):
+            m = min(chunk, n - lo)
+            cls = classes[rng.integers(0, len(classes), size=m)]
+            lens = rng.integers(cls[:, 0], cls[:, 1] + 1)[:, None]
+            rec = np.full((m, width), ord("I"), np.uint8)
+            rec[:, 0], rec[:, 1] = ord("@"), ord("r")
+            ids = (lo + np.arange(m)) % 10**8
+            for d in range(8):
+                rec[:, 9 - d] = 48 + (ids // 10**d) % 10
+            rec[:, 10] = ord("\n")
+            seq = alphabet[rng.integers(0, 4, size=(m, top), dtype=np.uint8)]
+            in_seq = col[None, head:head + top] < head + lens
+            rec[:, head:head + top] = np.where(in_seq, seq, ord("I"))
+            # Place "\n+\n", the quality run and the final newline right
+            # after each read's sequence, then drop the unused tail.
+            sep = head + lens                 # [m, 1]
+            rec[col[None, :] == sep] = ord("\n")
+            rec[col[None, :] == sep + 1] = ord("+")
+            rec[col[None, :] == sep + 2] = ord("\n")
+            end = sep + 3 + lens
+            rec[col[None, :] == end] = ord("\n")
+            keep = col[None, :] <= end
+            f.write(rec[keep].tobytes())
     return os.path.getsize(path)
 
 
@@ -73,8 +90,7 @@ def main():
     ap.add_argument("--runs", type=int, default=1,
                     help="repeat the pipeline N times; report the first "
                          "run separately as cold and {median,min,max} over "
-                         "the warm runs (relay spread is 2-5x, "
-                         "docs/ENVIRONMENT.md item 6)")
+                         "the warm runs")
     args = ap.parse_args()
 
     path = args.keep or os.path.join(tempfile.mkdtemp(), "profile10m.fastq")
@@ -87,12 +103,6 @@ def main():
 
     from shortseq_tpu.api.counter import read_and_count_fastq
 
-    if args.engine == "device":
-        # Only the device engine round-trips to the chip; overlap its
-        # one-time d2h handshake with the parse (utils/warmup.py).
-        from shortseq_tpu.utils.warmup import start_transfer_warmup
-
-        start_transfer_warmup()
     rss0 = rss_mb()
 
     def one_run():

@@ -1,6 +1,6 @@
 """Scaling-efficiency harness: reads/s of the sharded count pipeline at
 1..N devices over a `data` mesh (BASELINE target: >=85% efficiency at 2+
-hosts on a real pod slice).
+hosts).
 
 Weak scaling: per-device load is fixed, so perfect scaling = flat
 per-device time = efficiency 1.0 at every device count.
@@ -16,14 +16,14 @@ Three merge strategies:
                      in D, so this is the strategy that meets the >=85%
                      target at scale.
 
-On a pod slice this runs on real chips (jax.distributed, one process per
-host); on a dev box run it under a simulated CPU mesh:
+On a machine with several GPUs it runs on the real cards (one process
+drives them all); on a dev box run it under a simulated CPU mesh:
 
     PYTHONPATH=. JAX_PLATFORMS=cpu \
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \
     python benchmarks/scaling.py --out SCALING.json
 
-CPU-mesh caveat (recorded in the output): all virtual devices share the
+CPU-mesh caveat: all virtual devices share the
 host's cores and XLA:CPU thread pool, so absolute efficiency numbers are
 distorted by host contention; the meaningful signal is the TREND across
 strategies (whether per-device time grows with D), which is
@@ -113,13 +113,9 @@ if __name__ == "__main__":
     if args.out:
         payload = {
             "platform": jax.devices()[0].platform,
+            "device_kind": jax.devices()[0].device_kind,
             "n_devices_available": len(jax.devices()),
             "n_per_device": args.n_per_device,
-            "cpu_mesh_caveat": (
-                "virtual CPU devices share the host cores/threadpool; "
-                "absolute efficiency is distorted by host contention - "
-                "compare strategies by per-device time trend"
-                if jax.devices()[0].platform == "cpu" else None),
             "results": all_results,
         }
         Path(args.out).write_text(json.dumps(payload, indent=1) + "\n")

@@ -60,10 +60,9 @@ def make_ragged_reads(n, n_mol, umi_len=8, err=0.02, seed=1):
 
 
 def ragged_bench(n, seed=1):
-    """Measure the length-bucketed ragged path (VERDICT r03 next-step 7)
-    against the per-read Python dict path it replaced.  The Python path
-    runs on a subsample (it is the ~40x-slower side); rates are
-    reads/s."""
+    """Measure the length-bucketed ragged path against the per-read
+    Python dict path it replaced.  The Python path runs on a subsample
+    (it is the ~40x-slower side); rates are reads/s."""
     import shortseq_tpu.umi.dedup as dd
 
     n_mol = max(n // 10, 10)
@@ -107,9 +106,7 @@ def main():
     import jax
 
     from shortseq_tpu.umi.dedup import dedup_reads
-    from shortseq_tpu.utils.warmup import start_transfer_warmup
 
-    start_transfer_warmup()
     n_mol = args.n // 10
     mat, which = make_reads(args.n, n_mol)
 

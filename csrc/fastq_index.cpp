@@ -1,6 +1,6 @@
 // Host-side native FASTQ sharder for shortseq_tpu.
 //
-// TPU-native replacement for the reference's C getline reader
+// Native replacement for the reference's C getline reader
 // (reference fast_read.pyx:3-40): instead of building one Python object per
 // line, this library indexes a FASTQ buffer at memory bandwidth (memchr
 // newline scan, multi-threaded) and gathers the sequence lines (the 2nd of

@@ -109,7 +109,7 @@ inline uint64_t pack8(uint64_t x) {
 
 // Encode `len` ASCII bytes into pre-zeroed blocks.  Returns the offending
 // byte on failure, -1 on success.  Fast path handles 8 chars per step
-// (SWAR validity + pext/SWAR compaction, the TPU-host analog of the
+// (SWAR validity + pext/SWAR compaction, the host-side analog of the
 // reference's _marshall_full_blocks util.pyx:100-119); the scalar tail
 // also pinpoints the exact bad byte for the error message.
 inline int encode_into(const char* data, Py_ssize_t len, uint64_t* blocks) {

@@ -13,7 +13,7 @@ installed wheels keep the native IO path without shipping csrc/.
 
 ISA flags: setup.py-built artifacts may be WHEELS that travel to other
 machines, so -march=native is OFF by default here (a wheel built on an
-AVX-512 CI box would SIGILL on an older CPU; ADVICE r03).  Opt in with
+AVX-512 CI box would SIGILL on an older CPU).  Opt in with
 SHORTSEQ_TPU_MARCH_NATIVE=1 for build-where-you-run installs.  The
 on-demand JIT build (native_build.py) always compiles on the host that
 runs it and keeps -march=native unconditionally.

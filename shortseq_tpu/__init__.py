@@ -1,11 +1,11 @@
-"""shortseq_tpu - a TPU-native short-sequence encoding engine.
+"""shortseq_tpu - a short-sequence encoding engine on JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 reference ShortSeq library (see SURVEY.md): 2-bit packing of A/C/T/G reads
 into 64/192/variable-width words, lazy decoding, validated input, XOR +
 popcount hamming distance, Counter-style exact deduplication, a FASTQ
 pipeline, and UMI deduplication - plus what the reference does not have:
-batched device ops, Pallas kernels, and multi-host data-parallel dedup with
+batched device ops and multi-device data-parallel dedup with
 collective merges over a jax.sharding.Mesh.
 
 Public surface matches the reference package (reference
@@ -14,29 +14,37 @@ shortseq/__init__.py:1-14) and adds the batch/device APIs.
 
 import os as _os
 
-# Persistent XLA compilation cache: compiles dominate small-batch latency
-# (each uncached TPU compile costs seconds to minutes through a remote
-# compile service), and the count/pack programs come from a small closed
-# set of shapes thanks to power-of-two batch padding.  Opt out with
-# SHORTSEQ_TPU_NO_CACHE=1.
-if _os.environ.get("SHORTSEQ_TPU_NO_CACHE") != "1":
-    try:
-        import jax as _jax
 
-        # Respect an application that already configured the process-wide
-        # cache (programmatically or via env) - an import must not
-        # repoint another library's cache as a side effect.
-        if not (_jax.config.jax_compilation_cache_dir
-                or _os.environ.get("JAX_COMPILATION_CACHE_DIR")):
-            _jax.config.update(
-                "jax_compilation_cache_dir",
-                _os.path.expanduser("~/.cache/shortseq_tpu/jax_cache"))
-            _jax.config.update(
-                "jax_persistent_cache_min_compile_time_secs", 0.5)
-            _jax.config.update(
-                "jax_persistent_cache_min_entry_size_bytes", -1)
-    except Exception:  # cache is an optimization, never a requirement
-        pass
+def compile_cache_dir(environ=_os.environ):
+    """The directory this package points JAX's persistent compilation
+    cache at, or None when it sets nothing: JAX_COMPILATION_CACHE_DIR is
+    set (JAX reads it itself), SHORTSEQ_TPU_NO_CACHE=1, or the package is
+    not running from a source checkout.  In a checkout the cache is the
+    fixed directory `<checkout>/.jax_cache` - the path is part of the
+    cache key, so it never varies between runs."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR") \
+            or environ.get("SHORTSEQ_TPU_NO_CACHE") == "1":
+        return None
+    root = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
+    if not _os.path.exists(_os.path.join(root, "pyproject.toml")):
+        return None
+    return _os.path.join(root, ".jax_cache")
+
+
+def _configure_compile_cache():
+    import jax
+
+    # Respect an application that already configured the process-wide
+    # cache: an import must not repoint another library's cache.
+    path = compile_cache_dir()
+    if path is None or jax.config.jax_compilation_cache_dir:
+        return
+    jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+
+
+_configure_compile_cache()
 
 from .api import (
     pack,

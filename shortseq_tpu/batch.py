@@ -1,6 +1,6 @@
-"""PackedBatch - the TPU-first unit of work.
+"""PackedBatch - the device-first unit of work.
 
-The reference's unit is one Python object; the TPU-native unit is a
+The reference's unit is one Python object; the device-native unit is a
 structure-of-arrays batch (SURVEY.md section 7 decision 1): `[N, W]`
 uint32 packed lanes plus `[N]` lengths, living on device.  Everything the
 scalar objects do (pack, decode, hamming, slice, count) exists here as a
@@ -61,7 +61,7 @@ def _trim_words(words, lengths, start, length, out_width):
     (static), so the lane offset and bit shift are compile-time constants
     and the whole op is W_out static slices + shifts + one per-row tail
     mask - ~8x less traffic than the previous unpack-to-ASCII-and-repack
-    formulation (round-1 VERDICT weak spot 7)."""
+    formulation."""
     n, w = words.shape
     lane0, nt_off = divmod(start, NT_PER_LANE)
     sh = jnp.uint32(2 * nt_off)
@@ -88,7 +88,7 @@ def _trim_words(words, lengths, start, length, out_width):
 
 @partial(jax.jit, static_argnames=("out_w",))
 def _trim_words_ragged(words, lengths, starts, new_lengths, out_w):
-    """Per-row dynamic-start funnel shift (VERDICT r04 missing #2): the
+    """Per-row dynamic-start funnel shift: the
     scalar slicing engine (reference short_seq.pyx:94-238) batched with
     PER-ROW start positions - mixed-design UMI/adapter clipping, where
     each read's clip point differs.  The static-start kernel (_trim_words)
@@ -140,12 +140,10 @@ class PackedBatch:
         raising the reference's error (short_seq_64.pyx:105) on failure."""
         from .oracle import first_invalid_char
         from .ops.bitpack import pack_and_validate_rows
-        from .utils.warmup import start_transfer_warmup
 
         mat, lengths = _ascii_matrix(seqs, width)
         if len(seqs) == 0:
             return cls(jnp.zeros((0, 1), jnp.uint32), jnp.asarray(lengths))
-        start_transfer_warmup()
         # pad_valid: _ascii_matrix pads with PAD_BYTE (bloom-passing,
         # code-0), so the kernel skips per-byte length masking (~1.5x).
         words, ok = pack_and_validate_rows(mat.view(np.uint32), lengths,
@@ -161,7 +159,7 @@ class PackedBatch:
     def from_matrix(cls, mat, lengths) -> "PackedBatch":
         """Pack an already-padded uint8 ASCII matrix (e.g. straight from
         io.read_fastq_matrix) without validation.  The device receives the
-        matrix as its uint32 view (same bytes, no relayout on device),
+        matrix as its uint32 view (same bytes, no bitcast on device),
         row-folded for full-tile HBM traffic (ops.bitpack.pack_rows)."""
         from .ops.bitpack import pack_rows
 
@@ -209,7 +207,7 @@ class PackedBatch:
         return hamming_rows(self.words, other.words)
 
     def pairwise(self, other: "PackedBatch | None" = None) -> jax.Array:
-        """All-pairs hamming `[N, M]` (tiled Pallas kernel on TPU)."""
+        """All-pairs hamming `[N, M]` (ops.pairwise_hamming_auto)."""
         from .ops import pairwise_hamming_auto
 
         other = self if other is None else other

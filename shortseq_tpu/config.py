@@ -1,5 +1,5 @@
 """Runtime configuration (SURVEY.md section 5: the reference has no runtime
-config - compile-time CPU flags only - so this dataclass is the TPU build's
+config - compile-time CPU flags only - so this dataclass is this build's
 single knob surface).
 
 Domain constants (32/96/1024 widths) are NOT configurable: they are part of

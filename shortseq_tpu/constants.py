@@ -3,9 +3,9 @@
 Semantics mirror the reference library's constants (see reference
 shortseq/util.pyx:39-75 and the per-width domain getters in
 short_seq_64.pyx:27-28, short_seq_192.pyx:21-22, short_seq_var.pyx:8-10),
-but the representation here is TPU-first: one reference 64-bit block is a
-little-endian pair of uint32 lanes, because TPU vector units operate on
-32-bit lanes.
+but the representation here is device-first: one reference 64-bit block is
+a little-endian pair of uint32 lanes, because accelerator vector units
+operate on 32-bit lanes.
 """
 
 # --- Width-class domains (reference short_seq_64.pyx:27-28 etc.) -----------
@@ -19,7 +19,7 @@ MAX_REPR_LEN = 75  # reference short_seq_var.pyx:10
 
 # --- Bit layout -------------------------------------------------------------
 # 2-bit codes, LSB-first: nucleotide i of a read lives in 64-bit block
-# (i // 32) at bit offset 2 * (i % 32).  On TPU we store uint32 lanes:
+# (i // 32) at bit offset 2 * (i % 32).  On the device we store uint32 lanes:
 # nucleotide i -> lane (i // 16), bits 2 * (i % 16).  Reference block b is
 # exactly lanes[2b] | lanes[2b+1] << 32.
 NT_PER_BLOCK = 32          # nts per reference uint64 block (util.pyx:42)

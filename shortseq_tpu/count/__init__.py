@@ -1,4 +1,4 @@
-"""Device-side exact deduplication (the TPU replacement for the reference's
+"""Device-side exact deduplication (the replacement for the reference's
 CPython known-hash dict counting, reference counter.pyx:41-54).
 
 Counting is sort-unique, not a hash table (SURVEY.md section 7 decision 5):

@@ -113,10 +113,12 @@ def _total_jit():
         # straight sum is exact.  Device ints are 32-bit (x64 off); a
         # total past 2^31 wraps, so detect it with the same float32
         # shadow-sum trick as unique_count and poison to -1 (the host
-        # raises).  An entry already poisoned upstream (-1 from
-        # unique_count's per-group wrap detection) must also poison the
-        # total - it appears identically in sum and shadow, so the
-        # shadow comparison alone would miss it.
+        # raises); the 2^30 margin holds in any summation order, so the
+        # GPU's unordered reduction changes nothing.  An entry already
+        # poisoned upstream (-1 from unique_count's per-group wrap
+        # detection) must also poison the total - it appears identically
+        # in sum and shadow, so the shadow comparison alone would miss
+        # it.
         s = jnp.sum(counts)
         shadow = jnp.sum(counts.astype(jnp.float32))
         wrapped = jnp.abs(shadow - s.astype(jnp.float32)) > jnp.float32(2**30)

@@ -1,8 +1,8 @@
 """Multi-device / multi-host data parallelism.
 
 The reference is single-process (SURVEY.md section 2, "Parallelism: none").
-This package supplies the TPU-native scaling story mandated by BASELINE.json:
-FASTQ shards -> per-host batches -> per-chip shard_map over a 1-D `data`
+This package supplies the scaling story mandated by BASELINE.json:
+FASTQ shards -> per-host batches -> per-device shard_map over a 1-D `data`
 mesh axis, with per-shard sort-unique count tables merged by an
 `all_gather` + re-unique reduction (counting is associative).
 """

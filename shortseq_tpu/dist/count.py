@@ -1,12 +1,11 @@
 """Sharded dedup: per-shard sort-unique count + collective merge.
 
-The TPU-native replacement for the reference's single hash table
+The sharded replacement for the reference's single hash table
 (reference counter.pyx:41-54).  Each device counts its shard locally
 (dense sort-unique, count/device.py), then the shards' padded count tables
 are `all_gather`ed over the `data` axis and reduced with one more
 unique_count - exact because counting is associative.  The gather moves
-only the deduplicated tables (typically << reads), and rides ICI within a
-slice.
+only the deduplicated tables (typically << reads) between devices.
 
 All shapes are static: a shard of N reads yields a table padded to N rows;
 the merged table is padded to N * n_devices rows.
@@ -80,8 +79,8 @@ def _bucket_hash(words, lengths, n_buckets):
     Why not `(top bits) % D`: for non-power-of-two D the top
     bit_length(D-1) bits span [0, 2^b) with 2^b > D, so the values that
     wrap (e.g. 6, 7 for D = 6) alias onto buckets 0, 1 and those buckets
-    get exactly 2x the expected load - CPU meshes and some TPU slice
-    shapes are not powers of two.  The multiply-shift map partitions the
+    get exactly 2x the expected load - CPU meshes and some device
+    counts are not powers of two.  The multiply-shift map partitions the
     16-bit hash space into D equal-width ranges (max imbalance 1 part in
     65536/D, < 0.1% for any mesh <= 64 devices), and a multiplicative
     hash concentrates its entropy in the high bits, which are exactly the

@@ -1,9 +1,10 @@
 """Device mesh construction and multi-host bring-up.
 
 One mesh axis is all this domain needs (SURVEY.md section 2): reads are
-independent, blocks of one read live in the lane axis on a single chip, so
-`data` is the only distributed dimension.  Collectives ride ICI within a
-slice and DCN across hosts; XLA picks the routing from the mesh.
+independent, blocks of one read live in the lane axis on a single device,
+so `data` is the only distributed dimension.  The cards of one host are
+joined all to all by NVLink, so a flat 1-D mesh in device order is as
+good as any other; across hosts XLA (NCCL) routes the collectives.
 """
 
 from __future__ import annotations
@@ -18,18 +19,16 @@ def initialize_distributed(**kwargs) -> None:
     Must run before any JAX computation, so the decision cannot consult
     jax.process_count() (which itself initializes the backend).  The call
     happens when the caller passes explicit kwargs (coordinator_address
-    etc.) or when the standard multi-process environment markers are
-    present (JAX service env, or a TPU pod environment where
-    auto-detection works); single-process dev runs are a no-op.  Safe to
-    call twice - an already-initialized runtime is left alone.
+    etc.) or when a coordinator address is present in the environment
+    (COORDINATOR_ADDRESS or JAX_COORDINATOR_ADDRESS); single-process runs
+    are a no-op.  Safe to call twice - an already-initialized runtime is
+    left alone.
 
     The reference has no equivalent - it is single-process by construction.
     """
     import os
 
-    env_addr = next((os.environ[v] for v in
-                     ("COORDINATOR_ADDRESS", "MEGASCALE_COORDINATOR_ADDRESS")
-                     if os.environ.get(v)), None)
+    env_addr = os.environ.get("COORDINATOR_ADDRESS") or None
     want = bool(kwargs) or env_addr is not None \
         or bool(os.environ.get("JAX_COORDINATOR_ADDRESS"))
     if not want:

@@ -21,12 +21,14 @@ import numpy as np
 from ..config import DEFAULT_CONFIG, PipelineConfig
 
 
-def _batched_count_tables(data, starts, lengths, config: PipelineConfig):
-    """Yield device count tables for one shard's indexed reads, one padded
-    batch per width bucket per batch_size chunk.  Packing + bloom
-    validation happen in the host gather (count/ingest.packed_buckets), so
-    only 2-bit words cross to the device."""
-    import jax.numpy as jnp
+def _batched_count_tables(data, starts, lengths, config: PipelineConfig,
+                          device=None):
+    """Yield count tables for one shard's indexed reads, counted on
+    `device` (default: JAX's default device), one padded batch per width
+    bucket per batch_size chunk.  Packing + bloom validation happen in the
+    host gather (count/ingest.packed_buckets), so only 2-bit words cross
+    to the device."""
+    import jax
 
     from ..count import unique_count
     from ..count.ingest import packed_buckets
@@ -34,8 +36,9 @@ def _batched_count_tables(data, starts, lengths, config: PipelineConfig):
     for words, sub_len in packed_buckets(
             data, starts, lengths, batch_size=config.batch_size,
             min_pad=config.min_batch_pad):
-        yield unique_count(jnp.asarray(words), jnp.asarray(sub_len),
-                           jnp.ones(len(sub_len), jnp.int32))
+        words, sub_len, ones = jax.device_put(
+            (words, sub_len, np.ones(len(sub_len), np.int32)), device)
+        yield unique_count(words, sub_len, ones)
 
 
 def count_fastq_sharded(filename, n_shards: int = 1, host: int = 0,
@@ -49,13 +52,24 @@ def count_fastq_sharded(filename, n_shards: int = 1, host: int = 0,
     With config.checkpoint_dir set, each shard's table is spilled after
     counting and completed shards are skipped on resume.
     """
+    return _merge_host_tables(_count_shards_to_host(
+        filename, n_shards, host, n_hosts, config))
+
+
+def _count_shards_to_host(filename, n_shards: int, host: int, n_hosts: int,
+                          config: PipelineConfig):
+    """count_fastq_sharded without the final merge: one list of host
+    (words, lengths, counts) tables for this host's shards.  This host's
+    i-th shard counts on its local device i mod (local device count), so
+    a process that drives several cards spreads the counting over all of
+    them."""
+    import jax
+
     from ..count.checkpoint import (check_manifest, completed_shards,
                                     file_fingerprint, load_table, save_table,
                                     shard_path)
     from ..io.fastq import read_fastq_index
-    from ..utils.warmup import start_transfer_warmup
 
-    start_transfer_warmup()
     size = os.path.getsize(filename)
     ckpt = config.checkpoint_dir
     done = set()
@@ -68,8 +82,9 @@ def count_fastq_sharded(filename, n_shards: int = 1, host: int = 0,
                        fingerprint=file_fingerprint(filename))
         done = completed_shards(ckpt, host)
 
+    devices = jax.local_devices()
     tables = []  # host tables: freshly counted shards + resumed loads
-    for shard in range(host, n_shards, n_hosts):
+    for i, shard in enumerate(range(host, n_shards, n_hosts)):
         if shard in done:
             tables.append(load_table(shard_path(ckpt, host, shard)))
             continue
@@ -81,8 +96,8 @@ def count_fastq_sharded(filename, n_shards: int = 1, host: int = 0,
         data, starts, lengths = read_fastq_index(filename, byte_range=rng)
         # Fetch each batch table as it is produced: device memory stays
         # O(batch), not O(shard) (the whole point of config.batch_size).
-        host_tables = [_table_to_host(t) for t in
-                       _batched_count_tables(data, starts, lengths, config)]
+        host_tables = [_table_to_host(t) for t in _batched_count_tables(
+            data, starts, lengths, config, devices[i % len(devices)])]
         if ckpt:
             merged = _merge_host_tuples_device(host_tables)
             w, l, c = _table_to_host(merged)  # one live-prefix fetch...
@@ -90,7 +105,7 @@ def count_fastq_sharded(filename, n_shards: int = 1, host: int = 0,
             tables.append((w, l, c))          # ...shared with the spill
         else:
             tables.extend(host_tables)
-    return _merge_host_tables(tables)
+    return tables
 
 
 def _table_to_host(table):
@@ -191,7 +206,7 @@ def gather_row_sharded(x):
     its addressable shards together with their global row offsets, the
     (rows, offsets) pairs are allgathered, and rows are scattered back to
     their offsets - no assumption that processes own contiguous ascending
-    bands (an interleaved TPU topology or a reversed device list would
+    bands (an interleaved device order or a reversed device list would
     silently permute a rank-order concatenation)."""
     import jax
 
@@ -249,8 +264,12 @@ def read_and_count_fastq_distributed(filename, n_shards: int | None = None,
     it with table_to_counter / table_to_host_rows, which handle both
     layouts in multi-controller runs.
 
-    Single-process runs degenerate to count_fastq_sharded with no merge,
-    so this is also the simplest correct entry point everywhere.
+    Shards default to one per device, and each host counts its shards on
+    its own devices in turn (_count_shards_to_host), so one process that
+    drives several cards spreads the counting over all of them before
+    the mesh merge.  With a single device this degenerates to
+    count_fastq_sharded (no mesh merge), so it is also the simplest
+    correct entry point everywhere.
     """
     import jax
 
@@ -260,37 +279,41 @@ def read_and_count_fastq_distributed(filename, n_shards: int | None = None,
     initialize_distributed()
     host, n_hosts = jax.process_index(), jax.process_count()
     if n_shards is None:
-        n_shards = max(1, n_hosts)
-    local = count_fastq_sharded(filename, n_shards=n_shards, host=host,
-                                n_hosts=n_hosts, config=config)
-    if n_hosts == 1:
-        return ShardedCountTable(*local, "prefix")
+        n_shards = jax.device_count()
+    tables = _count_shards_to_host(filename, n_shards=n_shards, host=host,
+                                   n_hosts=n_hosts, config=config)
+    if jax.device_count() == 1:
+        return ShardedCountTable(*_merge_host_tables(tables), "prefix")
 
-    import jax.numpy as jnp
     from jax.experimental import multihost_utils
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from ..count.device import PAD_LENGTH
 
-    w, l, c = _table_to_host(local)
-    # Agree on a common per-host row count (tables differ per host) and a
-    # common lane width, then build a global [hosts*rows, W] array with
-    # each host contributing its padded slab.
+    # This host's shard tables stacked as rows (the merge sums duplicate
+    # keys across shards through the weights).  Agree on a common
+    # per-host row count and lane width, then build a global
+    # [hosts*rows, W] array with each host contributing its padded slab.
+    n_rows = sum(len(l) for _, l, _ in tables)
+    width = max([w.shape[1] for w, _, _ in tables if w.size], default=1)
     # int32: int64 would silently truncate through the x64-disabled jax.
     sizes = multihost_utils.process_allgather(
-        np.asarray([len(l), w.shape[1] if w.size else 1], np.int32))
+        np.asarray([n_rows, width], np.int32))
     rows = int(sizes[:, 0].max())
     width = int(sizes[:, 1].max())
     # Round rows up so the global batch divides the mesh evenly.
     dev_per_host = len(jax.local_devices())
-    rows = -(-rows // dev_per_host) * dev_per_host
+    rows = max(dev_per_host, -(-rows // dev_per_host) * dev_per_host)
 
     w_pad = np.zeros((rows, width), np.uint32)
     l_pad = np.full(rows, PAD_LENGTH, np.int32)
     c_pad = np.zeros(rows, np.int32)
-    w_pad[:len(l), :w.shape[1]] = w
-    l_pad[:len(l)] = l
-    c_pad[:len(l)] = c
+    at = 0
+    for w, l, c in tables:
+        w_pad[at:at + len(l), :w.shape[1]] = w
+        l_pad[at:at + len(l)] = l
+        c_pad[at:at + len(l)] = c
+        at += len(l)
 
     mesh = data_mesh()
     sharding = NamedSharding(mesh, P("data"))

@@ -32,7 +32,7 @@ import numpy as np
 # Process-wide cache of the jitted per-mesh top-k steps, keyed by
 # (mesh, k): a per-instance cache would re-trace identical programs for
 # every table built over the same mesh.  BOUNDED as a simple FIFO-evicting
-# dict (ADVICE r03: each entry pins a compiled shard_map closure and a
+# dict (each entry pins a compiled shard_map closure and a
 # Mesh with device refs; long-lived processes querying many n values or
 # rebuilding meshes would otherwise accumulate them without limit).  k is
 # already pow2-bucketed, so 16 slots cover several meshes x several k.

@@ -23,7 +23,7 @@ carrying its own compressed size (BSIZE) in a BC extra subfield
 
 The reference cannot read compressed input at all (its reader is a plain
 stdio getline loop, reference fast_read.pyx:3-20); this is beyond-parity
-capability the TPU pipeline needs because its multi-host ingest shards
+capability the device pipeline needs because its multi-host ingest shards
 by byte range (io.fastq.read_fastq_index).
 """
 

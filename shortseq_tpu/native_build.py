@@ -31,7 +31,7 @@ _tried = False
 def isa_token() -> str:
     """Host-ISA component of the cache key.  Builds use -march=native, so
     a cache directory shared between heterogeneous hosts (NFS $HOME on a
-    multi-host pod) must not serve one host's library to another - the
+    multi-host cluster) must not serve one host's library to another - the
     CPU flag set identifies the ISA exactly."""
     import hashlib
     import platform

@@ -16,4 +16,4 @@ from .bitpack import (
     collapse_xor,
 )
 from .hamming import hamming_rows, hamming_pairwise, hamming_pairwise_mxu
-from .pallas_kernels import hamming_pairwise_tiled, pairwise_hamming_auto
+from .pallas_kernels import pairwise_formulation, pairwise_hamming_auto

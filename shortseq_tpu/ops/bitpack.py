@@ -1,6 +1,6 @@
 """Batched 2-bit pack / unpack / validate as jnp ops (XLA compute path).
 
-Design (TPU-first, not a translation of the reference's BMI2 pext tricks):
+Design (not a translation of the reference's BMI2 pext tricks):
 
 * Unit of work is a batch `[N, L]` of ASCII bytes, padded with 0 to a static
   L that is a multiple of 16 nts.  Output is `[N, L // 16]` uint32 lanes,
@@ -10,23 +10,21 @@ Design (TPU-first, not a translation of the reference's BMI2 pext tricks):
 
 * The device-native input layout is `[N, L // 4]` uint32 - the same bytes
   the host already holds, viewed 4 chars per lane (numpy `.view(uint32)`,
-  zero copy).  8-bit arrays on TPU live in a packed tiled layout, and every
-  u8<->u32 bitcast is a cross-lane relayout pass; taking the input as u32
-  eliminates the largest one (round-1 VERDICT: the u8 path reached ~3% of
-  HBM bandwidth, and the relayouts were the suspect).
+  zero copy).  Taking the input as u32 keeps every device op on 32-bit
+  lanes and needs no u8->u32 bitcast on the device.
 
 * The encode is pure lane arithmetic: code = (ascii >> 1) & 3, which equals
   the reference's table_91 lookup / pext-mask trick for every byte the
   bloom filter accepts.  16 codes per output lane are assembled in two
   steps:
     1. within-lane SWAR: 4 codes at bits {0,8,16,24} compact into the low
-       byte ((c | c>>6 | c>>12 | c>>18) & 0xFF) - elementwise VPU work;
+       byte ((c | c>>6 | c>>12 | c>>18) & 0xFF) - elementwise work;
     2. 4:1 cross-lane combine out = b0 | b1<<8 | b2<<16 | b3<<24.  This is
-       a *linear* function of the lanes, so it runs on the MXU as two bf16
-       matmuls against constant banded {1, 256} matrices (exact: every
+       a *linear* function of the lanes, so it runs as two bf16 matrix
+       products against constant banded {1, 256} matrices (exact: every
        product is an 8-bit integer times a power of two, accumulated in
-       f32, results <= 65535 < 2^24), then lo | hi << 16.  No relayouts,
-       no gathers; XLA fuses step 1 into the dot operand read.
+       f32, results <= 65535 < 2^24), then lo | hi << 16.  No gathers;
+       XLA fuses step 1 into the dot operand read.
 
 * Validation is a mask, not an exception (SURVEY.md section 7 decision 3),
   and implements the reference's EXACT 64-bit bloom semantics
@@ -36,32 +34,27 @@ Design (TPU-first, not a translation of the reference's BMI2 pext tricks):
   aliases (0x01, 0x03, 0x07, 0x14, 0x41|0x80, ...) which then encode via
   (c >> 1) & 3 exactly as the reference's table does - so the scalar
   object layer (oracle.is_base, csrc encode_into) and this device path
-  agree on all 256 byte values (round-1 VERDICT item 4).
+  agree on all 256 byte values.
 
-* Row folding: a `[N, W4]` uint32 operand with W4 < 128 occupies
-  (8, 128)-tiled memory with the lane dim padded to 128, so every HBM
-  pass moves up to 16x the logical bytes (W4 = 8 for the 32-nt bucket).
-  `pack_and_validate_rows` folds F consecutive rows into one
-  ([N/F, F*W4], a free host-side reshape) so tiles are full; the
-  compaction matrix becomes block-diagonal (still one dot).  Measured on
-  v5e: folded pack-only reaches ~550-880 G nt/s (HBM speed of light for
-  1 B/nt read + 0.25 B/nt write is ~880; raw stream 1105 GB/s) vs ~294
-  unfolded.  Measurement rule learned the hard way: each DISTINCT big
+* Row folding: `pack_and_validate_rows` folds F consecutive rows into
+  one ([N/F, F*W4], a free host-side reshape) so a narrow operand
+  (W4 = 8 for the 32-nt bucket) fills 128- or 512-lane rows; the
+  compaction matrix becomes block-diagonal (still one dot).  The fold
+  targets were chosen on another chip and are not measured on the H100
+  (ROADMAP queue 1 items 2 and 4; queue 3 item 2 asks whether a plain
+  elementwise shift-or pack can replace all of this).  Each DISTINCT big
   dot operand costs one full read of the input (operands fuse into
-  reads; outputs materialize), so formulations with one big operand
-  win - see benchmarks/pack_fold.py and docs/PERF.md.
+  reads; outputs materialize), so formulations with one big operand are
+  preferred.
 
-* Fused pack + validate is ONE dot (round 4): the operand is the codes
-  byte POISONED to 2^20 on bloom-failing lanes, and the block-diagonal
-  matrix gains `fold` ok-columns whose sums reveal poisoned rows while
-  clean rows' pack columns stay integer-exact (pack_and_validate_folded
+* Fused pack + validate is ONE dot: the operand is the codes byte
+  POISONED to 2^20 on bloom-failing lanes, and the block-diagonal matrix
+  gains `fold` ok-columns whose sums reveal poisoned rows while clean
+  rows' pack columns stay integer-exact (pack_and_validate_folded
   docstring has the full argument).  Under the PAD_BYTE builder contract
   (pad_valid=True: tail bytes pass the bloom and encode to 0) the kernel
-  skips per-byte length masking and measures 500-585 G nt/s - within
-  noise of pack-only, i.e. validation rides the pack's own HBM read and
-  MXU pass for free; with masking (foreign matrices) 350-390.  The
-  round-3 three-dot formulation measured ~300 (two big operands = two
-  input reads).
+  skips per-byte length masking, so validation rides the pack's own
+  input read.
 """
 
 from __future__ import annotations
@@ -141,7 +134,7 @@ def pack_words(ascii_u8: jax.Array) -> jax.Array:
     """Pack `[N, L]` ASCII uint8 (L % 16 == 0, zero padded) to
     `[N, L//16]` uint32.  Compatibility wrapper: prefer handing the device
     the uint32 view directly (host `.view(uint32)` is free; the u8->u32
-    bitcast here is a relayout pass on device)."""
+    bitcast here is an extra pass on device)."""
     return pack_words_u32(_u8_to_u32(ascii_u8))
 
 
@@ -190,12 +183,9 @@ def _bloom_fail_bits(x_u32: jax.Array) -> jax.Array:
     20) which needs +15: is2 = (code & ~(code << 1)) & 2 isolates code 2
     (value 2 per byte), and (is2 << 3) - (is2 >> 1) adds 16 - 1 = 15.
     All arithmetic stays within each byte (code <= 3, exp <= 20, is2 has
-    only bit 1 -> no cross-byte carries or shifts).  ~16 VPU ops/lane vs
-    ~29 for the four-way zero-test SWAR, and the `c` here CSEs with the
-    pack's own code computation in a fused program - the fused
-    pack+validate is VPU-bound on this chip, so ops/lane is the lever
-    (measured: fused rose from ~300 to >=550 G nt/s with this + the
-    one-read kernel; benchmarks/pack_fold.py, docs/PERF.md).  Verified
+    only bit 1 -> no cross-byte carries or shifts).  ~16 integer ops/lane
+    vs ~29 for the four-way zero-test SWAR, and the `c` here CSEs with
+    the pack's own code computation in a fused program.  Verified
     equal to the reference bloom on all 256 byte values in
     tests/test_validation_parity.py (incl. the false-pass aliases
     {1,3,7,20} + 64/128/192 offsets with bit 5 clear)."""
@@ -299,13 +289,10 @@ def _folded_mats(w4: int, fold: int):
 
 def fold_for(w4: int, n: int, target_lanes: int = 128) -> int:
     """Row-fold factor for a `[n, w4]` host batch: enough folded lanes to
-    fill the 128-lane tiles, a power of two so the pow2-padded batch dims
-    of every production caller divide evenly.
-
-    Measured optima differ by op (benchmarks/pack_fold.py, fetch-forced):
-    fused pack+validate peaks near 128 folded lanes (two big dot operands
-    - more fold raises VMEM pressure with no traffic win), pack-only
-    keeps gaining to ~512 lanes (one operand; 1184 G nt/s at w4=8 f=64).
+    reach `target_lanes`, a power of two so the pow2-padded batch dims
+    of every production caller divide evenly.  The targets (128 for the
+    fused pack+validate, 512 for pack-only) were chosen on another chip
+    and are not measured on the H100 (ROADMAP queue 1 items 2 and 4).
     """
     if w4 >= target_lanes or n <= 0:
         return 1
@@ -332,7 +319,7 @@ def pack_and_validate_folded(x_f: jax.Array, lengths_f: jax.Array,
                              w4: int, unfold: bool = True,
                              pad_valid: bool = False):
     """Fused pack + validate on a row-folded batch - ONE dot, ONE input
-    read (round-4 redesign; VERDICT r03 next-step 2).
+    read.
 
     Args:
       x_f:       `[N/F, F*w4]` uint32 - F consecutive logical rows per
@@ -346,9 +333,7 @@ def pack_and_validate_folded(x_f: jax.Array, lengths_f: jax.Array,
                  length passes the reference bloom AND encodes to code 0
                  (bytes 0x01/'A'/0x81/0xC1; constants.PAD_BYTE) - the
                  contract all in-repo matrix builders satisfy.  Skips the
-                 length-masking work entirely: measured ~584 G nt/s vs
-                 ~390 with masking vs ~292 for the previous three-dot
-                 formulation (benchmarks/pack_fold.py, docs/PERF.md).
+                 length-masking work entirely.
 
     How one dot carries both results: the operand is the codes byte
     (0..255, bf16-exact) per lane, POISONED to 2^20 where the lane holds
@@ -364,9 +349,10 @@ def pack_and_validate_folded(x_f: jax.Array, lengths_f: jax.Array,
         marshalling also writes garbage for rejected bytes before the
         caller sees the raised error (util.pyx:100-119 encodes; the
         bloom check at util.pxd:116-127 gates).
-    Validation cost thus rides the same MXU pass and the same HBM read
-    as the pack.  Detection is exact: f32 accumulation is exact for the
-    clean range, and a poisoned sum is >= 2^20 - |rounding| >> 2^19.
+    Validation cost thus rides the same matrix product and the same
+    input read as the pack.  Detection is exact: f32 accumulation is
+    exact for the clean range, and a poisoned sum is >= 2^20 - |rounding|
+    >> 2^19.
     """
     from ..utils.profiling import named_scope
 
@@ -383,16 +369,15 @@ def pack_and_validate_folded(x_f: jax.Array, lengths_f: jax.Array,
         else:
             # Mask tail bytes (at/past each row's length) out of the fail
             # bits: lengths broadcast to lanes via a tiny constant f32 dot
-            # (f32: lengths up to 1024 exceed bf16's mantissa).  Measured
-            # r05 back-to-back: an integer broadcast_to+reshape
-            # formulation - fewer ops on paper - ran at 328 G nt/s vs
-            # this dot's 384: expanding the minor dim and folding it into
-            # the lane axis is a cross-lane relayout pass on TPU, while
-            # the dot rides the MXU and fuses into the operand read.
+            # (f32: lengths up to 1024 exceed bf16's mantissa).  HIGHEST
+            # precision: at the default a GPU may run f32 products in
+            # TF32, whose 10-bit mantissa happens to hold lengths <= 1024
+            # exactly - correctness must not rest on that.
             len_lane = jax.lax.dot_general(
                 lengths_f.astype(jnp.float32),
                 jnp.asarray(spread, jnp.float32),
-                dn, preferred_element_type=jnp.float32)
+                dn, precision=jax.lax.Precision.HIGHEST,
+                preferred_element_type=jnp.float32)
             rem = jnp.clip(len_lane - 4.0 * jnp.asarray(lane_in_row)[None, :],
                            0.0, 4.0).astype(jnp.int32)
             badlane = (fail & _tail_mask(rem)) != 0
@@ -448,8 +433,7 @@ def pack_folded(x_f: jax.Array, w4: int, unfold: bool = True):
 def pack_rows(mat_u32: np.ndarray) -> jax.Array:
     """Host entry for unvalidated construction: numpy `[N, w4]` uint32
     view -> device `[N, w4/4]` packed lanes, row-folded to ~512 lanes
-    (measured 1184 G nt/s at w4=8 on this chip, benchmarks/pack_fold.py;
-    the reshapes are free host views)."""
+    (the reshapes are free host views)."""
     n, w4 = mat_u32.shape
     fold = fold_for(w4, n, target_lanes=512)
     if fold == 1:
@@ -492,6 +476,6 @@ def pack_and_validate_u32(x_u32: jax.Array, lengths: jax.Array,
 @jax.jit
 def pack_and_validate(ascii_u8: jax.Array, lengths: jax.Array):
     """Fused pack + validity mask from a u8 matrix (compatibility path;
-    pays one u8->u32 relayout that pack_and_validate_u32 avoids)."""
+    pays one u8->u32 bitcast pass that pack_and_validate_u32 avoids)."""
     x = _u8_to_u32(ascii_u8)
     return pack_and_validate_u32(x, lengths)

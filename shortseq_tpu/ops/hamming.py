@@ -5,7 +5,7 @@ short_seq_var.pyx:64-81): per 64-bit block, c = a ^ b;
 c = ((c >> 1) | c) & 0x5555...; popcount; summed over blocks.  Complementary
 codes XOR to 0b11 and must count once, hence the collapse.
 
-On TPU the same math runs on uint32 lanes with
+On the device the same math runs on uint32 lanes with
 jax.lax.population_count - the collapse never crosses a 2-bit field, so
 splitting each block into two lanes is bit-exact.  Lanes past a read's
 length are zero in both operands (the pack path zero-fills), so no masking
@@ -36,8 +36,9 @@ def hamming_pairwise(a_words: jax.Array, b_words: jax.Array) -> jax.Array:
     """All-pairs hamming: `[N, W] x [M, W] -> [N, M]` int32.
 
     The batched building block for UMI clustering (SURVEY section 2 row 15).
-    Broadcasts the XOR; fine up to a few thousand rows per tile - larger
-    problems should tile via ops.pallas_kernels.hamming_pairwise_tiled.
+    Broadcasts the XOR; XLA fuses broadcast, XOR, collapse, popcount and
+    the lane sum into one kernel, so the [N, M, W] intermediate is never
+    written to device memory.
     """
     with named_scope("ssq.pairwise_jnp"):
         c = collapse_xor(a_words[:, None, :] ^ b_words[None, :, :])
@@ -59,15 +60,15 @@ def one_hot_codes(words: jax.Array) -> jax.Array:
 
 @jax.jit
 def hamming_pairwise_mxu(a_words: jax.Array, b_words: jax.Array) -> jax.Array:
-    """All-pairs hamming as one MXU matmul: `dist = nt_width - matches`,
-    with matches = one_hot(a) @ one_hot(b).T.
+    """All-pairs hamming as one matrix product: `dist = nt_width -
+    matches`, with matches = one_hot(a) @ one_hot(b).T.
 
     Bit-exact vs hamming_pairwise: operands are 0/1 bf16 (exactly
     representable), the contraction accumulates in f32, and per-pair sums
     are <= 1024 < 2^24 - no rounding anywhere.  Rationale: the XOR
-    formulation is VPU-bound (~6 vector ops/pair); this one rides the
-    systolic array at 4*nt MACs/pair, which on TPU wins despite the 64x
-    operand expansion because pairwise work is O(N*M) while operands are
+    formulation costs ~6 integer ops per lane pair; this one runs on the
+    matrix units at 4*nt MACs/pair, which can win despite the 64x operand
+    expansion because pairwise work is O(N*M) while operands are
     O(N+M)."""
     w = a_words.shape[1]
     with named_scope("ssq.pairwise_mxu"):

@@ -118,7 +118,7 @@ def subscript_block(src: Sequence[int], index: int) -> int:
 
 
 def blocks_to_lanes(blocks: Sequence[int], n_lanes: int) -> List[int]:
-    """Reference uint64 blocks -> little-endian uint32 lane list (TPU layout)."""
+    """Reference uint64 blocks -> little-endian uint32 lane list (device layout)."""
     lanes = []
     for b in blocks:
         lanes.append(b & 0xFFFFFFFF)

@@ -1,11 +1,9 @@
-"""Cross-cutting utilities: transfer warmup, profiling scopes, debug dumps."""
+"""Cross-cutting utilities: profiling scopes, debug dumps."""
 
-from .warmup import start_transfer_warmup
 from .profiling import phase_timer, named_scope, trace
 from .debug import printbin, dump_lanes
 
 __all__ = [
-    "start_transfer_warmup",
     "phase_timer", "named_scope", "trace",
     "printbin", "dump_lanes",
 ]

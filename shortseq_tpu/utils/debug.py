@@ -1,6 +1,6 @@
 """Debug helpers: binary dumps of packed words.
 
-The TPU-native analog of the reference's printbin/pext-chunk visualizers
+The device-layout analog of the reference's printbin/pext-chunk visualizers
 (reference util.pxd:73-85, tests/util.py:6-25): render packed lanes or
 blocks as grouped binary so bit-layout bugs are visible at a glance."""
 

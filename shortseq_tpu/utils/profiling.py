@@ -1,8 +1,8 @@
 """Tracing / profiling hooks (SURVEY.md section 5).
 
 The reference's observability is compile-time line tracing plus ad-hoc
-phase prints (reference setup.py:36-37, counter.pyx:62-70).  The TPU-native
-equivalents: jax.profiler trace contexts around pipeline phases,
+phase prints (reference setup.py:36-37, counter.pyx:62-70).  The equivalents
+here: jax.profiler trace contexts around pipeline phases,
 jax.named_scope on kernels so they are identifiable in XLA traces, and a
 lightweight phase timer whose output feeds the bench metrics."""
 

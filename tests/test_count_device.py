@@ -213,9 +213,9 @@ class TestShardedCount:
         from shortseq_tpu.count import count_batch
         from shortseq_tpu.dist import count_sharded, data_mesh
 
-        # Runs on however many devices the interpreter booted with (1 real
-        # TPU chip here); the true 8-device CPU-mesh run is
-        # test_multichip.py's subprocess check.
+        # Runs on however many devices the interpreter booted with; the
+        # fixed 8-device CPU-mesh run is test_multichip.py's subprocess
+        # check.
         seqs = [rand_sequence(rng, rng.randint(1, 32)) for _ in range(120)]
         seqs += seqs[:40]  # 160 rows, divisible by any 2^k mesh
         words, lengths = _pack_batch(seqs, 2)

@@ -1,12 +1,13 @@
-"""Tiled Pallas pairwise-hamming kernel vs the jnp broadcast op and the
-string oracle.  The Mosaic lowering only exists on TPU; off-TPU these
-tests exercise the auto-fallback path."""
+"""All-pairs Hamming: every formulation against the string oracle, the
+measured choice among them, and that a failing formulation raises instead
+of falling back."""
 
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
+
+from shortseq_tpu import oracle
 
 
 def _rand_words(n, w, seed):
@@ -15,53 +16,34 @@ def _rand_words(n, w, seed):
         rng.integers(0, 2**32, size=(n, w), dtype=np.uint64).astype(np.uint32))
 
 
-on_tpu = jax.devices()[0].platform == "tpu"
+def _packed_strings(n, w, seed):
+    """n random ACTG strings filling w lanes (16 * w nt) and their words,
+    packed by the scalar oracle (independent of the device pack)."""
+    rng = np.random.default_rng(seed)
+    seqs = ["".join(rng.choice(list("ACTG"), size=16 * w)) for _ in range(n)]
+    words = np.asarray([oracle.blocks_to_lanes(oracle.encode_bytes(s.encode()),
+                                               w) for s in seqs], np.uint32)
+    return seqs, words
+
+
+class TestPairwiseOracle:
+    @pytest.mark.parametrize("w", [2, 6, 64])
+    @pytest.mark.parametrize("name", ["jnp", "mxu"])
+    def test_formulation_matches_oracle(self, name, w):
+        # Row counts that are no tile multiple of anything.
+        from shortseq_tpu.ops.pallas_kernels import _FORMULATIONS
+
+        sa, a = _packed_strings(37, w, 1)
+        sb, b = _packed_strings(53, w, 2)
+        dist = np.asarray(_FORMULATIONS[name](a, b))
+        assert dist.shape == (37, 53)
+        want = np.asarray([[oracle.str_hamming(x, y) for y in sb]
+                           for x in sa])
+        assert (dist == want).all()
 
 
 class TestPairwiseTiled:
-    @pytest.mark.skipif(not on_tpu, reason="Mosaic kernel needs TPU")
-    @pytest.mark.parametrize("n,m,w", [(128, 128, 2), (256, 384, 6),
-                                       (130, 70, 4), (64, 64, 64)])
-    def test_matches_jnp(self, n, m, w):
-        from shortseq_tpu.ops import hamming_pairwise, hamming_pairwise_tiled
-
-        a, b = _rand_words(n, w, 1), _rand_words(m, w, 2)
-        got = np.asarray(hamming_pairwise_tiled(a, b))
-        want = np.asarray(hamming_pairwise(a, b))
-        assert (got == want).all()
-
-    @pytest.mark.skipif(not on_tpu, reason="Mosaic kernel needs TPU")
-    @pytest.mark.parametrize("tile", [128, 256])
-    def test_explicit_tiles_agree(self, tile):
-        from shortseq_tpu.ops import hamming_pairwise, hamming_pairwise_tiled
-
-        a, b = _rand_words(300, 6, 3), _rand_words(500, 6, 4)
-        got = np.asarray(hamming_pairwise_tiled(a, b, tile=tile))
-        want = np.asarray(hamming_pairwise(a, b))
-        assert (got == want).all()
-
-    @pytest.mark.parametrize("n,m,w", [(128, 128, 2), (130, 70, 4),
-                                       (64, 64, 6)])
-    def test_interpret_matches_jnp(self, n, m, w):
-        # The Pallas interpreter runs on any backend, so CI off-TPU still
-        # executes the real kernel (tiling, index maps, popcount loop)
-        # instead of only the jnp fallback.
-        from shortseq_tpu.ops import hamming_pairwise, hamming_pairwise_tiled
-
-        a, b = _rand_words(n, w, 1), _rand_words(m, w, 2)
-        got = np.asarray(hamming_pairwise_tiled(a, b, interpret=True))
-        want = np.asarray(hamming_pairwise(a, b))
-        assert (got == want).all()
-
-    @pytest.mark.parametrize("tile", [128, 256])
-    def test_interpret_explicit_tiles(self, tile):
-        from shortseq_tpu.ops import hamming_pairwise, hamming_pairwise_tiled
-
-        a, b = _rand_words(300, 6, 3), _rand_words(300, 6, 4)
-        got = np.asarray(hamming_pairwise_tiled(a, b, tile=tile,
-                                                interpret=True))
-        want = np.asarray(hamming_pairwise(a, b))
-        assert (got == want).all()
+    """The measured choice among the formulations (pairwise_hamming_auto)."""
 
     def test_auto_records_path(self):
         import jax
@@ -76,9 +58,7 @@ class TestPairwiseTiled:
         kind = getattr(jax.devices()[0], "device_kind", platform)
         winner = pk._CALIBRATION[f"{platform}/{kind}/w2"]
         assert pk.LAST_PAIRWISE_PATH == winner
-        assert winner in ("pallas", "mxu", "jnp")
-        if platform != "tpu":
-            assert winner != "pallas"  # never a candidate off-TPU
+        assert winner in pk._FORMULATIONS
 
     def test_calibration_measures_and_caches(self, tmp_path, monkeypatch):
         """calibrate_pairwise: winner == argmin of the measured times;
@@ -91,8 +71,8 @@ class TestPairwiseTiled:
         monkeypatch.setattr(pk, "_calib_file", lambda: calib_file)
         monkeypatch.setattr(pk, "_CALIBRATION", {})
         times = pk.calibrate_pairwise(6, force=True)
-        assert times and set(times) <= {"pallas", "mxu", "jnp"}
         platform = jax.devices()[0].platform
+        assert times and set(times) <= set(pk._FORMULATIONS)
         kind = getattr(jax.devices()[0], "device_kind", platform)
         key = f"{platform}/{kind}/w6"
         assert pk._CALIBRATION[key] == min(times, key=times.get)
@@ -121,10 +101,33 @@ class TestPairwiseTiled:
                 assert dist[i, j] == want
 
 
+def _broken(a, b):
+    raise RuntimeError("formulation failed to compile")
+
+
+def test_auto_raises_when_the_chosen_formulation_fails(monkeypatch):
+    from shortseq_tpu.ops import pallas_kernels as pk
+
+    monkeypatch.setitem(pk._FORMULATIONS, "mxu", _broken)
+    monkeypatch.setenv("SHORTSEQ_TPU_PAIRWISE", "mxu")
+    with pytest.raises(RuntimeError, match="failed to compile"):
+        pk.pairwise_hamming_auto(_rand_words(8, 2, 1), _rand_words(8, 2, 2))
+    assert pk.LAST_PAIRWISE_PATH == "mxu"  # no fallback ran
+
+
+def test_calibration_raises_when_a_candidate_fails(monkeypatch, tmp_path):
+    from shortseq_tpu.ops import pallas_kernels as pk
+
+    monkeypatch.setattr(pk, "_calib_file", lambda: str(tmp_path / "c.json"))
+    monkeypatch.setattr(pk, "_CALIBRATION", {})
+    monkeypatch.setitem(pk._FORMULATIONS, "mxu", _broken)
+    with pytest.raises(RuntimeError, match="failed to compile"):
+        pk.calibrate_pairwise(2, force=True)
+    assert not pk._CALIBRATION  # nothing was cached as a winner
+
+
 def test_pairwise_env_override(monkeypatch):
     # SHORTSEQ_TPU_PAIRWISE selects the formulation; all are bit-exact.
-    import numpy as np
-
     from shortseq_tpu.ops import pallas_kernels as pk
 
     rng = np.random.default_rng(2)
